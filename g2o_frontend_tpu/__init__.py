@@ -1,4 +1,4 @@
-"""g2o_frontend_tpu — a TPU-native SLAM/SfM engine.
+"""g2o_frontend_tpu — a SLAM/SfM engine in JAX.
 
 A from-scratch re-design of the capability surface of grisetti/g2o_frontend
 (sensor ingestion, 2D laser SLAM, PWN RGB-D dense registration, RANSAC data

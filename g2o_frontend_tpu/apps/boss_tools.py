@@ -170,6 +170,9 @@ def main(argv=None):
     p.add_argument("--rate", type=float, default=0.0)
     p.set_defaults(fn=cmd_playback)
     args = ap.parse_args(argv)
+    from ..utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     return args.fn(args)
 
 

@@ -40,6 +40,9 @@ def main(argv=None):
     ap.add_argument("--cols", type=int, default=640)
     ap.add_argument("--viz-prefix", default=None)
     args = ap.parse_args(argv)
+    from ..utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     import jax.numpy as jnp
 

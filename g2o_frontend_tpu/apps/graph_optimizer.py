@@ -26,6 +26,9 @@ def main(argv=None):
     ap.add_argument("--devices", type=int, default=0,
                     help="shard edges over N devices (0 = single)")
     args = ap.parse_args(argv)
+    from ..utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     from ..graph.store import graph2d_from_log, graph3d_from_log
     from ..io.g2o import read_g2o, write_g2o

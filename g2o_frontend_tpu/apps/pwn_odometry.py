@@ -45,6 +45,9 @@ def main(argv=None):
         "(pwn_benchmark.cpp:417-421, pwn_odometry.cpp:43-46)",
     )
     args = ap.parse_args(argv)
+    from ..utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     import time as _time
 
     import jax.numpy as jnp

@@ -33,6 +33,9 @@ def main(argv=None):
     ap.add_argument("--optimize-each-n-keyframes", type=int, default=5)
     ap.add_argument("--max-frames", type=int, default=0)
     args = ap.parse_args(argv)
+    from ..utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     import jax.numpy as jnp
 

@@ -36,6 +36,9 @@ def main(argv=None):
     ap.add_argument("-maxFrames", type=int, default=0)
     ap.add_argument("-odometryIsGood", action="store_true")
     args = ap.parse_args(argv)
+    from ..utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
 
 

@@ -1,9 +1,9 @@
-"""Flat-array pose-graph store — the TPU-native `MapManager`/graph model.
+"""Flat-array pose-graph store — the device-side `MapManager`/graph model.
 
 The reference keeps the map as a pointer graph (`MapManager` + `MapNode` +
 `MapNodeBinaryRelation`, ``boss_map/map_manager.h:9-56``, ``map_core.h``) and
 mirrors it into g2o vertices/edges for optimization
-(``boss_map_building/map_g2o_reflector.h:15-48``). On TPU the graph *is* the
+(``boss_map_building/map_g2o_reflector.h:15-48``). Here the graph *is* the
 array form from the start: struct-of-arrays with static capacity and validity
 masks, so the whole optimizer runs under `jit` with fixed shapes while the
 graph grows (capacity doubling = the only recompile point).

@@ -15,7 +15,7 @@ live in side files referenced by path (`BLOBReference`, lazily loaded on
 This is the checkpoint/resume backbone (SURVEY.md §5) and the config system:
 the reference declares whole pipelines as serialized object graphs
 (``pwn_tracker2/conf/*.conf``) — `Deserializer` reads those files directly,
-and `register(name=...)` lets our TPU components claim the reference class
+and `register(name=...)` lets our components claim the reference class
 names so existing configs instantiate the new framework.
 """
 from __future__ import annotations

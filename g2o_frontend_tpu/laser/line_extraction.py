@@ -1,6 +1,6 @@
 """2D laser line extraction: clustering + split-merge, fully vectorized.
 
-TPU-native re-design of ``line_extraction/line_extraction2d.{h,cpp}``
+JAX re-design of ``line_extraction/line_extraction2d.{h,cpp}``
 (`Point2DClusterer` + `Line2DExtractor` split/merge) and the
 ``IEdgesExtractor``/``SplitMergeEE`` family (``SplitMergeEE.h:11-21``):
 

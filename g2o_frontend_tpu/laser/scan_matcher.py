@@ -1,6 +1,6 @@
 """Grid maps and correlative scan matching as batched cross-correlation.
 
-TPU-native re-design of ``mapper/matcher/``:
+JAX re-design of ``mapper/matcher/``:
 
 - `GridMap` (``matcher/structures/gridmap.h``): dense (H, W) occupancy /
   likelihood array with world<->grid transforms.
@@ -9,7 +9,7 @@ TPU-native re-design of ``mapper/matcher/``:
   smear — here a separable XLA convolution.
 - `CorrelativeMatcher` (``matching/correlative_matcher.h:8-68``): the
   reference enumerates candidate (x, y, theta) cells in nested loops and
-  scores each by walking scan points. On TPU the whole translational search
+  scores each by walking scan points. Here the whole translational search
   for one rotation is ONE FFT cross-correlation (score(dx, dy) =
   sum_p map[p + d]), and rotations are a vmapped batch: K_theta FFTs replace
   millions of scalar probes. Multi-resolution refinement = rerun on a

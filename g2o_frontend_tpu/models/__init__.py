@@ -4,7 +4,7 @@ The reference composes its pipelines from JSON object-graph configs
 (``pwn_tracker2/conf/*.conf``, loaded at ``pwn_slam_app.cpp:41-59``) and from
 per-app flag sets (``datasets/2D/params.txt``). This package is the single
 import point for those compositions: each family builds the host-side driver
-wired to the jitted TPU compute path, with the reference's defaults.
+wired to the jitted device compute path, with the reference's defaults.
 
 Families (reference counterparts):
 - ``pwn_rgbd_odometry`` — keyframe RGB-D odometry (`pwn_tracker`, #13/#15)

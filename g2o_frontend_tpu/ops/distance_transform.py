@@ -1,6 +1,6 @@
 """Distance maps and Voronoi partitions via the jump-flood algorithm.
 
-TPU-native replacement for ``voronoi/``'s distance-map + Voronoi machinery
+JAX replacement for ``voronoi/``'s distance-map + Voronoi machinery
 (``voronoi_diagram.h:40-49``, ``distance_map_extractor.cpp``): the reference
 propagates nearest-obstacle information with queue-based wavefronts; here a
 jump-flood pass (log2(max(H,W)) rounds of 9-neighbor shifted min-selects)

@@ -3,9 +3,9 @@
 The reference computes per-pixel surface normals/curvatures by an
 eigendecomposition of 3x3 point-covariance matrices
 (``pwn_core/statscalculatorintegralimage.cpp:14-84`` uses Eigen's
-SelfAdjointEigenSolver per pixel). On TPU, calling XLA's general `eigh` per
-pixel would serialize; instead we use the analytic trigonometric solution
-(Smith's method) for eigenvalues plus cross-product eigenvectors — pure VPU
+SelfAdjointEigenSolver per pixel). Calling XLA's general `eigh` per pixel
+would serialize; instead we use the analytic trigonometric solution
+(Smith's method) for eigenvalues plus cross-product eigenvectors — pure
 element-wise math that vmaps/fuses over entire images.
 
 All functions take (..., 3, 3) symmetric inputs and are fully branchless.
@@ -76,8 +76,8 @@ def _eigenvector_for(A, lam, fallback):
     n01 = jnp.sum(c01 * c01, axis=-1)
     n02 = jnp.sum(c02 * c02, axis=-1)
     n12 = jnp.sum(c12 * c12, axis=-1)
-    # branchless 3-way max select (no gather: take_along_axis serializes on
-    # TPU; two where-selects stay on the VPU)
+    # branchless 3-way max select: two where-selects instead of a
+    # take_along_axis gather
     v = jnp.where((n01 >= n02)[..., None], c01, c02)
     nbest = jnp.maximum(n01, n02)
     v = jnp.where((n12 > nbest)[..., None], c12, v)
@@ -133,7 +133,7 @@ def eigh3x3(A):
 
 # ---- channel-planar variants (sym6 layout: (6, ...) upper triangle) --------
 # Same math as above, but all per-pixel quantities are leading-channel
-# planes — the TPU-friendly layout (see ops/sym6.py): no trailing dims of
+# planes — the planar layout (see ops/sym6.py): no trailing dims of
 # 3/(3,3) are ever materialized.
 
 

@@ -1,6 +1,6 @@
 """Integral images (summed-area tables) for windowed point statistics.
 
-TPU-native analog of ``pwn_core/pointintegralimage.{h,cpp}`` +
+JAX analog of ``pwn_core/pointintegralimage.{h,cpp}`` +
 ``statscalculatorintegralimage.cpp``: the reference accumulates, per pixel, a
 9-channel integral image of (p, p p^T outer products, count) and reads
 rectangular window sums to get local point means/covariances in O(1).
@@ -63,8 +63,8 @@ def window_sums_fixed(I, r: int):
     """Window sums for a single static radius via shifted slices (no gather).
 
     Clamped-window semantics identical to `window_sums` but expressed as four
-    statically-shifted slices of an edge-padded table — pure VPU adds, the
-    fast path on TPU where arbitrary gathers serialize.
+    statically-shifted slices of an edge-padded table — pure elementwise
+    adds, no gather.
     """
     H, W = I.shape[0] - 1, I.shape[1] - 1
     pad = [(r, r), (r, r)] + [(0, 0)] * (I.ndim - 2)
@@ -82,7 +82,7 @@ def window_sums_quantized(I, radii, levels):
 
     Each pixel uses the smallest level >= its requested radius (largest level
     if none). Replaces the per-pixel-exact gather path with
-    len(levels) shifted-slice passes + a select — the TPU-friendly tradeoff
+    len(levels) shifted-slice passes + a select — the gather-free tradeoff
     (the reference's radius is itself a clamped heuristic,
     ``statscalculatorintegralimage.cpp:45-49``).
     """
@@ -145,8 +145,8 @@ def window_moments(points, valid, radii, levels=None):
 
 # ---- channel-planar variants ((C, H, W) leading channels) ------------------
 # The trailing-channel versions above materialize (H, W, C) tables whose
-# minor dims pad to the (8, 128) TPU tile; the planar twins below keep every
-# channel a well-tiled (H, W) plane.
+# minor dims are tiny; the planar twins below keep every channel a
+# contiguous (H, W) plane.
 
 
 def integral_image_planar(x):
@@ -158,7 +158,7 @@ def integral_image_planar(x):
 def window_sums_fixed_planar(I, r: int):
     """Clamped-window sums for a static radius, planar twin of
     `window_sums_fixed`: four statically-shifted slices of the edge-padded
-    table — pure VPU adds."""
+    table — pure elementwise adds."""
     H, W = I.shape[1] - 1, I.shape[2] - 1
     Ip = jnp.pad(I, ((0, 0), (r, r), (r, r)), mode="edge")
     s = 2 * r + 1

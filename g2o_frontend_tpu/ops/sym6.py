@@ -1,7 +1,7 @@
-"""Symmetric 3x3 matrices as 6 leading channels — the TPU-friendly layout.
+"""Symmetric 3x3 matrices as 6 leading channels — the planar layout.
 
-On TPU the minor-most two array dims are tiled to (8 sublanes, 128 lanes);
-per-pixel matrices stored as trailing (3, 3) dims tile catastrophically.
+Per-pixel matrices stored as trailing (3, 3) dims make every elementwise
+op stride over tiny minor dims.
 Per-pixel symmetric matrices are therefore kept CHANNEL-PLANAR: a (6, H, W)
 array whose leading channels are the upper triangle (xx, xy, xz, yy, yz, zz),
 so all per-pixel algebra is elementwise over well-tiled (H, W) planes.

@@ -8,8 +8,8 @@ replaces both directions with point-to-point ``ppermute`` rounds that move
 ONLY the boundary pose blocks the ghost directory names — the structural
 analog of the reference partitioner's boundary-gauge handling
 (``boss_map/map_utils.cpp:167`` makePartitions + the per-partition gauge
-nodes), done the TPU way: a static exchange schedule compiled into the XLA
-program, riding ICI neighbor links instead of ring all-reduces.
+nodes), done as a static exchange schedule compiled into the XLA program:
+point-to-point transfers instead of ring all-reduces.
 
 Schedule construction (host side, once per partition):
   ghost g of shard s owned by shard t  ->  ring shift k = (s - t) mod D.
@@ -97,11 +97,12 @@ def build_halo_spec(ghosts: list, B: int, n_dev: int, G: int,
     if mode == "auto":
         # a2a cuts the collective count to 1 regardless of partner count,
         # at the cost of padding every partner lane to the max pairwise
-        # count. MEASURED (scripts/bench_halo_modes.py, victoriaPark
-        # partitions, r4): a2a wins 12-15% wall per matvec at D=4/8 even
-        # carrying 1.3-1.4x the wire bytes — launch count dominates at
-        # these O(KB) payloads. Prefer a2a whenever >2 shifts are active,
-        # unless its lane padding would more than double the bytes.
+        # count. Measured on virtual CPU meshes only
+        # (scripts/bench_halo_modes.py, victoriaPark partitions): a2a won
+        # 12-15% wall per matvec at D=4/8 even carrying 1.3-1.4x the wire
+        # bytes — launch count dominated at these O(KB) payloads. Prefer
+        # a2a whenever >2 shifts are active, unless its lane padding would
+        # more than double the bytes. NVLink cards should re-decide this.
         pair = max(
             (len(e) for k in by_shift for e in by_shift[k].values()),
             default=1,

@@ -3,16 +3,16 @@
 The reference is single-process (OpenMP threads + optional single GPU,
 SURVEY.md §2 parallelism inventory); the multi-chip axis is new in this
 framework. We use one 1-D logical mesh axis ``"shard"`` for the edge/keyframe
-partition dimension — the TPU analog of the reference's map partitions
+partition dimension — the device analog of the reference's map partitions
 (``boss_map/map_utils.cpp:167`` makePartitions): each device owns a block of
-edges (later: keyframe blocks), poses are replicated, and reductions ride ICI
-via `psum`.
+edges (later: keyframe blocks), poses are replicated, and reductions are
+`psum` collectives.
 """
 from __future__ import annotations
 
 import jax
 import numpy as np
-from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+from jax.sharding import Mesh
 
 EDGE_AXIS = "shard"
 
@@ -24,15 +24,6 @@ def make_mesh(n_devices: int | None = None, devices=None) -> Mesh:
     if n_devices is not None:
         devices = devices[:n_devices]
     return Mesh(np.asarray(devices), (EDGE_AXIS,))
-
-
-def edge_sharding(mesh: Mesh) -> NamedSharding:
-    """Leading-axis sharding for per-edge arrays."""
-    return NamedSharding(mesh, P(EDGE_AXIS))
-
-
-def replicated(mesh: Mesh) -> NamedSharding:
-    return NamedSharding(mesh, P())
 
 
 def pad_to_multiple(x, multiple: int, axis: int = 0, fill=0):

@@ -77,6 +77,57 @@ def optimize_se2_schur_partitioned(
     value; stats carries partition/communication accounting including the
     extra replicated psum floats this solver adds over the block-Jacobi one.
     """
+    program, operands, part = schur_partitioned_program(
+        g, mesh, iters, cg_iters, lm_lambda0, huber_delta, tol, cg_rtol,
+        halo_mode)
+    pb, lb, trace, cg_tot, lm_k_done = program(*operands)
+
+    n_dev = mesh.devices.size
+    NL = g.landmarks.shape[0]
+    NP_full = g.poses.shape[0]
+    poses_flat = np.asarray(pb).reshape(-1, 3)[:NP_full]
+    if len(poses_flat) < NP_full:
+        poses_flat = np.concatenate(
+            [poses_flat, np.asarray(g.poses)[len(poses_flat):]], axis=0
+        )
+    lms = jnp.asarray(np.asarray(lb)[part.lm_owner, part.lm_local])
+    g_out = g.with_poses(jnp.asarray(poses_flat), lms)
+
+    cg_total = int(np.asarray(cg_tot))
+    lm_iters = int(np.asarray(lm_k_done))
+    stats = {
+        "partition": partition_stats(part),
+        "comm": comm_volume(part, lm_iters, cg_total),
+        "cg_total": cg_total,
+        "lm_iters": lm_iters,
+        # replicated psum floats this solver adds beyond the halo bytes:
+        # per CG iter: interface rhs (2D*3) [precond] + arrow w (2NL);
+        # per LM iter: interface assembly (~(2D*3)^2), X interface rhs
+        # (2D*3*2NL), K psum ((2NL)^2), A_diag (4NL)
+        "spike_bytes_per_solve": spike_solve_bytes(n_dev, 3),
+        "replicated_psum_floats_per_cg_iter": 2 * n_dev * 3 + 2 * NL,
+        "replicated_psum_floats_per_lm_iter": (
+            (2 * n_dev * 3) ** 2 + 2 * n_dev * 3 * 2 * NL
+            + (2 * NL) ** 2 + 4 * NL
+        ),
+    }
+    return g_out, trace, stats
+
+
+def schur_partitioned_program(
+    g: PoseGraph2D,
+    mesh,
+    iters: int = 100,
+    cg_iters: int = 50,
+    lm_lambda0: float = 1e-6,
+    huber_delta: float | None = None,
+    tol: float = 1e-9,
+    cg_rtol: float = 1e-6,
+    halo_mode: str = "auto",
+):
+    """The partitioned Schur LM as one jitted program, its operands and the
+    partition: `program(*operands)` returns the per-device pose and
+    landmark blocks, the chi2 trace and the CG and LM iteration counts."""
     n_dev = mesh.devices.size
     # The Woodbury arrow replicates a (2NL)^2 landmark matrix K and dense
     # per-device (B, 3, 2NL) V slices — the few-landmarks regime of graphs
@@ -365,36 +416,11 @@ def optimize_se2_schur_partitioned(
         jnp.asarray(part.lm_gid),
         jnp.asarray(lm_free_global),
     )
-    # bf16 matmul default would wreck the repeated 3x3 eliminations (see
-    # solvers/schur_pcg.py) — pin f32 accumulation for the whole program
-    with jax.default_matmul_precision("highest"):
-        pb, lb, trace, cg_tot, lm_k_done = jax.jit(run)(*args)
+    # reduced-precision matmuls (TF32 on a GPU) would wreck the repeated 3x3
+    # eliminations (see solvers/schur_pcg.py) — pin full float32 for the
+    # whole program
+    def program(*operands):
+        with jax.default_matmul_precision("highest"):
+            return run(*operands)
 
-    NP_full = g.poses.shape[0]
-    poses_flat = np.asarray(pb).reshape(-1, 3)[:NP_full]
-    if len(poses_flat) < NP_full:
-        poses_flat = np.concatenate(
-            [poses_flat, np.asarray(g.poses)[len(poses_flat):]], axis=0
-        )
-    lms = jnp.asarray(np.asarray(lb)[part.lm_owner, part.lm_local])
-    g_out = g.with_poses(jnp.asarray(poses_flat), lms)
-
-    cg_total = int(np.asarray(cg_tot))
-    lm_iters = int(np.asarray(lm_k_done))
-    stats = {
-        "partition": partition_stats(part),
-        "comm": comm_volume(part, lm_iters, cg_total),
-        "cg_total": cg_total,
-        "lm_iters": lm_iters,
-        # replicated psum floats this solver adds beyond the halo bytes:
-        # per CG iter: interface rhs (2D*3) [precond] + arrow w (2NL);
-        # per LM iter: interface assembly (~(2D*3)^2), X interface rhs
-        # (2D*3*2NL), K psum ((2NL)^2), A_diag (4NL)
-        "spike_bytes_per_solve": spike_solve_bytes(n_dev, 3),
-        "replicated_psum_floats_per_cg_iter": 2 * n_dev * 3 + 2 * NL,
-        "replicated_psum_floats_per_lm_iter": (
-            (2 * n_dev * 3) ** 2 + 2 * n_dev * 3 * 2 * NL
-            + (2 * NL) ** 2 + 4 * NL
-        ),
-    }
-    return g_out, trace, stats
+    return jax.jit(program), args, part

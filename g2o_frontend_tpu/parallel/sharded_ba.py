@@ -3,7 +3,7 @@
 The BASELINE.json target architecture: keyframe/observation blocks
 partitioned across devices; each device linearizes its observation shard and
 produces partial (NP,6)/(NL,3) reduction vectors and partial block
-diagonals; `psum` over ICI assembles the global quantities; the Schur-PCG
+diagonals; `psum` across devices assembles the global quantities; the Schur-PCG
 then iterates replicated with two psums per matvec. Landmark elimination
 (H_pp^-1) is computed redundantly on every device from the psum'ed point
 blocks — O(NL) 3x3 inverses, negligible vs. communication.

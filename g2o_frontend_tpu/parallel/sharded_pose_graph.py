@@ -1,11 +1,10 @@
 """Edge-sharded distributed pose-graph optimization via shard_map.
 
-Distribution model (the TPU counterpart of the reference's partition
+Distribution model (the device counterpart of the reference's partition
 machinery, SURVEY.md §5 "long-context" analog): the edge set is block-
 partitioned across a 1-D device mesh; pose/landmark state is replicated.
 Every Hessian-vector product and gradient is computed as per-device
-`segment_sum` scatters over the local edge block followed by a `psum` over
-ICI. The PCG iteration then proceeds identically (replicated) on all
+`segment_sum` scatters over the local edge block followed by a `psum`. The PCG iteration then proceeds identically (replicated) on all
 devices — communication is exactly two f32 all-reduces of size (NP*3 + NL*2)
 per CG matvec, the minimum for a row-partitioned sparse matrix with
 replicated state.
@@ -44,8 +43,23 @@ def optimize_se2_sharded(
     """LM-optimize with edges sharded over `mesh`; returns (graph, chi2_trace).
 
     Works on any mesh size that divides the (padded) edge capacity; tested on
-    virtual CPU meshes, deployed on ICI-connected TPU slices.
+    virtual CPU meshes and on four GPUs (``chip_smoke.py --four-gpus``).
     """
+    program, operands = sharded_se2_program(g, mesh, iters, cg_iters,
+                                            lm_lambda0)
+    poses, lms, trace = program(*operands)
+    return g.with_poses(poses, lms), trace
+
+
+def sharded_se2_program(
+    g: PoseGraph2D,
+    mesh,
+    iters: int = 10,
+    cg_iters: int = 100,
+    lm_lambda0: float = 1e-4,
+):
+    """The edge-sharded LM as one jitted program and its operands:
+    `program(*operands)` returns (poses, landmarks, chi2_trace)."""
     n_dev = mesh.devices.size
     pp_ij = pad_to_multiple(g.pp_ij, n_dev)
     pp_meas = pad_to_multiple(g.pp_meas, n_dev)
@@ -154,7 +168,7 @@ def optimize_se2_sharded(
         )
         return poses, lms, trace
 
-    poses, lms, trace = jax.jit(run)(
+    return jax.jit(run), (
         g.poses,
         g.landmarks,
         pp_ij,
@@ -168,4 +182,3 @@ def optimize_se2_sharded(
         free_p,
         free_l,
     )
-    return g.with_poses(poses, lms), trace

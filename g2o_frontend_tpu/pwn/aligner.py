@@ -1,14 +1,16 @@
 """PWN dense point-with-normal alignment — the flagship compute path.
 
-TPU-native re-design of ``pwn_core/aligner.cpp`` + ``pwn_cuda/cudaaligner.cu``:
+JAX re-design of ``pwn_core/aligner.cpp`` + ``pwn_cuda/cudaaligner.cu``:
 the reference's OpenMP/CUDA loop (project reference -> per-pixel gated
 correspondences -> accumulate 6x6 H and 6-vector b -> damped solve) becomes
 one jitted XLA program per outer iteration:
 
-- reference re-projection with the deterministic two-pass z-buffer
-  (projector.project), replacing the serial depth race
-  (``pinholepointprojector.cpp:52-65``) and the CUDA atomic-free kernel
-  (``cudaaligner.cu:476-557``),
+- projective association: by default each current pixel is mapped into
+  the reference image and the reference attributes are fetched with one
+  gather; ``association="zbuffer"`` re-renders the reference with the
+  deterministic two-pass z-buffer (projector.project) instead, replacing
+  the serial depth race (``pinholepointprojector.cpp:52-65``) and the CUDA
+  atomic-free kernel (``cudaaligner.cu:476-557``),
 - per-pixel correspondence gates exactly as ``correspondencefinder.cpp:20-118``
   (both normals nonzero, angular dot >= threshold, squared distance, clamped
   curvature ratio) evaluated as one fused mask — no compaction,
@@ -16,9 +18,9 @@ one jitted XLA program per outer iteration:
   (chi2 > inlierMaxChi2 -> scale b by sqrt(maxChi2/chi2), H unscaled —
   preserving the reference's asymmetric robustification,
   ``linearizer.cpp:67-89``),
-- H/b reduction is a masked sum over the image (the Pallas analog of the
-  shared-memory tree reduction in ``Aligner_coolIterationKernel``,
-  ``cudaaligner.cu:361-406``; XLA emits the same tiled reduction),
+- H/b reduction is a masked sum over the image (XLA emits the tiled
+  reduction that ``Aligner_coolIterationKernel`` does in shared memory,
+  ``cudaaligner.cu:361-406``),
 - damped 6x6 solve ``dx = -(H + I + 1000 I)^-1 b`` and chart update
   ``invT <- v2t(dx) * invT`` (``aligner.cpp:88-116``),
 - solution statistics: re-linearize at the optimum, unscented remap of the
@@ -44,6 +46,9 @@ from .cloud import Cloud
 from .projector import PinholeProjector
 
 
+ASSOCIATIONS = ("gather", "zbuffer")
+
+
 @dataclass(frozen=True)
 class AlignerConfig:
     """Defaults = reference constructor values (``aligner.cpp:14-37``,
@@ -65,37 +70,20 @@ class AlignerConfig:
     translational_min_eigen_ratio: float = 50.0
     rotational_min_eigen_ratio: float = 50.0
     min_inliers: int = 100
-    # association strategy:
-    #   "auto"    - "fused" on TPU, "gather" elsewhere
-    #   "fused"   - single Pallas sweep: project -> banded one-hot gather ->
-    #               gates -> linearize (ops/pallas_aligner.py, the analog of
-    #               ``cudaaligner.cu:361-406``)
-    #   "gather"  - XLA take-based cur->ref projective lookup
-    #   "zbuffer" - reference-parity ref re-render (two-pass z-buffer)
-    association: str = "auto"
-    # fused-kernel band: per-pixel residual displacement window (pixels)
-    # around the per-tile mean displacement; tiles are (tile_rows, tile_cols).
-    # CAVEAT (high-dynamics inputs): correspondences whose displacement
-    # deviates more than (band_dv, band_du) pixels from their tile's mean
-    # flow are silently dropped. For rotation-dominant motion or strong
-    # depth parallax inside one tile, either widen the band (cost grows
-    # linearly with band area) or set association="gather" for the exact
-    # XLA path; tests/test_fused_aligner.py pins recall across a motion
-    # sweep and documents the measured envelope.
-    band_dv: int = 4
-    band_du: int = 6
-    # fused-path coverage floor: AlignResult.band_coverage below this tells
-    # the caller the banded association lost correspondences; the host
-    # tracker redoes the align with association="gather"
-    fused_min_band_coverage: float = 0.90
-    # r5 sweep (VERDICT r4 Next 6, eval_out/tr_sweep.json): TR=32 doubles
-    # the DMA block height for <10% more overhead rows — measured 423 fps
-    # vs 319 at TR=16 (+32%) at equal accuracy (t_err 3e-4, coverage
-    # 0.974); TR=64 reaches 517 fps but breaks accuracy (t_err 4e-2,
-    # coverage at the 0.90 floor) — the per-tile mean displacement stops
-    # representing its tile. TR=32 is the measured optimum.
-    tile_rows: int = 32
-    tile_cols: int = 128
+    # projective association:
+    #   "gather"  - cur->ref projective lookup, one packed XLA gather per
+    #               outer iteration (the production path)
+    #   "zbuffer" - reference-parity re-render of the reference cloud
+    #               (two-pass z-buffer, ``correspondencefinder.cpp:20-118``);
+    #               the tests' reference for the gather path
+    association: str = "gather"
+
+    def __post_init__(self):
+        if self.association not in ASSOCIATIONS:
+            raise ValueError(
+                f"association must be one of {ASSOCIATIONS}, "
+                f"got {self.association!r}"
+            )
 
 
 class SE3Prior(NamedTuple):
@@ -149,12 +137,6 @@ class AlignResult(NamedTuple):
     translational_ratio: jnp.ndarray  # () eigenratio validity stats
     rotational_ratio: jnp.ndarray
     valid: jnp.ndarray  # () bool (eigenratio + min-inlier gates)
-    # fused path only: fraction of projectable pixels whose correspondence
-    # fell inside the banded window at the optimum (1.0 on other paths).
-    # Low coverage flags scenes whose per-tile flow spread exceeds the band
-    # (strong rotation / parallax) — the documented fallback is to redo the
-    # align with association="gather" (see slam/pwn_tracker.py)
-    band_coverage: jnp.ndarray = jnp.asarray(1.0)
 
 
 def _pixel_of_planar(projector, x, y, z):
@@ -177,7 +159,7 @@ def _pixel_of_planar(projector, x, y, z):
 
 
 def _correspondences_gather(ref: Cloud, cur: Cloud, invT, projector, cfg):
-    """Gather-based projective association (the TPU-fast default).
+    """Gather-based projective association (the production path).
 
     For every *current* pixel: map its point into the reference frame
     (T = invT^-1), project into the reference image, and fetch the reference
@@ -447,56 +429,26 @@ def align(
     """Estimate T (current -> reference) between two clouds.
 
     The outer loop is a `lax.fori_loop` over `outer_iterations`; each body
-    re-projects the reference (z-buffer), recomputes gated correspondences,
-    runs `inner_iterations` Gauss-Newton updates, all on-chip.
+    recomputes gated correspondences (``config.association``) and runs
+    `inner_iterations` Gauss-Newton updates, all on the device.
 
     `priors` optionally adds Gaussian transform priors to every Gauss-Newton
     system (``aligner.cpp:96-108``); pass an `SE3Prior` with leading batch
     dims for multiple priors.
+
+    Every contraction is pinned to full float32: a GPU may otherwise run
+    float32 matmuls (the z-buffer path's einsums, the statistics) in TF32.
     """
-    cfg = config
+    with jax.default_matmul_precision("highest"):
+        return _align(reference, current, projector, initial_guess, config,
+                      priors)
+
+
+def _align(reference, current, projector, initial_guess, cfg, priors):
     dtype = reference.points.dtype
     T0 = jnp.eye(4, dtype=dtype) if initial_guess is None else initial_guess
 
-    association = cfg.association
-    if association == "auto":
-        association = (
-            "fused"
-            if jax.default_backend() == "tpu" and hasattr(projector, "fx")
-            else "gather"
-        )
-
-    if association == "fused":
-        # single Pallas sweep per Gauss-Newton system (ops/pallas_aligner.py)
-        from ..ops import pallas_aligner as _pa
-
-        TR, TC = cfg.tile_rows, cfg.tile_cols
-        DVb, DUb = cfg.band_dv, cfg.band_du
-        cur_p, ref_p = _pa.prepare_fused_inputs(
-            reference, current, TR=TR, TC=TC, DV=DVb, DU=DUb
-        )
-        _interp = jax.default_backend() != "tpu"
-
-        def system_fn(invT):
-            sums = _pa.fused_linearize(
-                cur_p, ref_p, _pa.params_from_invT(invT),
-                H=projector.rows, W=projector.cols,
-                TR=TR, TC=TC, DV=DVb, DU=DUb,
-                fx=projector.fx, fy=projector.fy,
-                cx=projector.cx, cy=projector.cy,
-                min_d=projector.min_distance, max_d=projector.max_distance,
-                nthr=cfg.inlier_normal_angular_threshold,
-                dthr2=cfg.inlier_distance_threshold**2,
-                cthr=cfg.flat_curvature_threshold,
-                rthr=cfg.inlier_curvature_ratio_threshold,
-                max_chi2=cfg.inlier_max_chi2,
-                robust=cfg.robust_kernel,
-                interpret=_interp,
-            )
-            return _pa.unpack_sums(sums)
-
-        assoc_fn = lin_fn = None
-    elif association == "gather":
+    if cfg.association == "gather":
         # channel-planar hot path (the Cloud storage layout)
 
         def assoc_fn(invT):
@@ -505,7 +457,6 @@ def align(
         def lin_fn(mask, rp, rn, invT):
             return _linearize_planar(mask, rp, rn, current, invT, cfg)
 
-        system_fn = None
     else:
 
         def assoc_fn(invT):
@@ -513,8 +464,6 @@ def align(
 
         def lin_fn(mask, rp, rn, invT):
             return _linearize(mask, rp, rn, current, invT, cfg)
-
-        system_fn = None
 
     def add_priors(H, b, invT):
         if priors is None:
@@ -533,60 +482,33 @@ def align(
         dx = jnp.linalg.solve(H, -b)
         return lie.se3_v2t(dx) @ invT
 
-    if association == "fused":
+    def outer(i, invT):
+        mask, ref_pts, ref_nrm = assoc_fn(invT)
 
-        def outer(i, invT):
-            # one fused sweep per Gauss-Newton system; inner iterations
-            # refresh the association too (a superset of the reference's
-            # frozen-correspondence inner loop, aligner.cpp:66-94)
-            def inner(k, invT):
-                H, b, _, _ = system_fn(invT)
-                return gn_step(H, b, invT)
+        def inner(k, invT):
+            H, b, _, _ = lin_fn(mask, ref_pts, ref_nrm, invT)
+            return gn_step(H, b, invT)
 
-            invT = jax.lax.fori_loop(0, cfg.inner_iterations, inner, invT)
-            return lie.se3_v2t(lie.se3_t2v(invT))
-
-    else:
-
-        def outer(i, invT):
-            mask, ref_pts, ref_nrm = assoc_fn(invT)
-
-            def inner(k, invT):
-                H, b, _, _ = lin_fn(mask, ref_pts, ref_nrm, invT)
-                return gn_step(H, b, invT)
-
-            invT = jax.lax.fori_loop(0, cfg.inner_iterations, inner, invT)
-            # re-orthonormalize through the chart (aligner.cpp:117)
-            return lie.se3_v2t(lie.se3_t2v(invT))
+        invT = jax.lax.fori_loop(0, cfg.inner_iterations, inner, invT)
+        # re-orthonormalize through the chart (aligner.cpp:117)
+        return lie.se3_v2t(lie.se3_t2v(invT))
 
     invT0 = lie.se3_inverse(T0)
     invT = jax.lax.fori_loop(0, cfg.outer_iterations, outer, invT0)
     T = lie.se3_inverse(invT)
 
     # ---- statistics at the optimum (aligner.cpp:152-199) ----
-    if association == "fused":
-        H, b, chi2, inliers = system_fn(invT)
-        coverage = _pa.fused_band_coverage(
-            cur_p, _pa.params_from_invT(invT),
-            H=projector.rows, W=projector.cols, TR=TR, TC=TC, DV=DVb, DU=DUb,
-            fx=projector.fx, fy=projector.fy, cx=projector.cx, cy=projector.cy,
-            min_d=projector.min_distance, max_d=projector.max_distance,
-        )
-    else:
-        mask, ref_pts, ref_nrm = assoc_fn(invT)
-        H, b, chi2, inliers = lin_fn(mask, ref_pts, ref_nrm, invT)
-        coverage = jnp.asarray(1.0, dtype)
-    return _finalize_stats(T, H, chi2, inliers, cfg, coverage)
+    mask, ref_pts, ref_nrm = assoc_fn(invT)
+    H, b, chi2, inliers = lin_fn(mask, ref_pts, ref_nrm, invT)
+    return _finalize_stats(T, H, chi2, inliers, cfg)
 
 
-def _finalize_stats(T, H, chi2, inliers, cfg, coverage=None) -> AlignResult:
+def _finalize_stats(T, H, chi2, inliers, cfg) -> AlignResult:
     """Post-loop statistics (aligner.cpp:152-199): unscented remap of the
-    local information to the chart at T, eigenratio validity gates. Pure
-    jnp — vmapped by `align_batch`."""
+    local information to the chart at T, eigenratio validity gates."""
     dtype = T.dtype
     H = H + jnp.eye(6, dtype=dtype)
-    # H is PD after the +I regularization: solve instead of pinv (pinv's SVD
-    # serializes a tiny op chain on TPU)
+    # H is PD after the +I regularization: a solve instead of pinv's SVD
     local_sigma = jnp.linalg.solve(H, jnp.eye(6, dtype=dtype))
 
     # unscented remap of N(0, local_sigma) through p -> t2v(T * v2t(p)^-1)
@@ -617,7 +539,7 @@ def _finalize_stats(T, H, chi2, inliers, cfg, coverage=None) -> AlignResult:
 
     # eigenratio gates via the analytic symmetric-3x3 eigenvalues (ascending;
     # omega blocks are PSD so singular values == eigenvalues) — replaces two
-    # serialized tiny SVDs
+    # tiny SVDs
     from ..ops.eigh3x3 import eigvals3x3
 
     st = eigvals3x3(omega[:3, :3])
@@ -629,10 +551,7 @@ def _finalize_stats(T, H, chi2, inliers, cfg, coverage=None) -> AlignResult:
         & (rr_ratio <= cfg.rotational_min_eigen_ratio)
         & (inliers >= cfg.min_inliers)
     )
-    if coverage is None:
-        coverage = jnp.asarray(1.0, dtype)
-    return AlignResult(T, mean, omega, inliers, chi2, tr_ratio, rr_ratio,
-                       valid, coverage)
+    return AlignResult(T, mean, omega, inliers, chi2, tr_ratio, rr_ratio, valid)
 
 
 @partial(jax.jit, static_argnames=("projector", "config"))
@@ -645,82 +564,9 @@ def align_batch(
 ) -> AlignResult:
     """K alignments of stacked candidate reference clouds against ONE shared
     current cloud (the closer's batched candidate matching,
-    ``pwn_closer.cpp:92-110`` done as one program — SURVEY §7 Phase 5).
-
-    On the fused path this runs ONE Pallas program with a (K, gR, gC) grid
-    (ops/pallas_aligner.fused_linearize_batch) — the kernel the per-pair
-    `align` uses, batched explicitly since `pallas_call` with scalar
-    prefetch + manual DMA has no vmap rule. Other associations fall back to
+    ``pwn_closer.cpp:92-110`` done as one program — SURVEY §7 Phase 5), as
     `vmap(align)`. Returns an AlignResult with leading dim K.
     """
-    cfg = config
-    association = cfg.association
-    if association == "auto":
-        association = (
-            "fused"
-            if jax.default_backend() == "tpu" and hasattr(projector, "fx")
-            else "gather"
-        )
-    if association != "fused":
-        from dataclasses import replace
-
-        cfg_k = replace(cfg, association=association)
-        return jax.vmap(
-            lambda ref, g: align(ref, current, projector, g, cfg_k)
-        )(references, initial_guesses)
-
-    from ..ops import pallas_aligner as _pa
-
-    dtype = current.points.dtype
-    TR, TC = cfg.tile_rows, cfg.tile_cols
-    DVb, DUb = cfg.band_dv, cfg.band_du
-    cur_p, ref_ps = _pa.prepare_fused_batch(
-        references, current, TR=TR, TC=TC, DV=DVb, DU=DUb
-    )
-    _interp = jax.default_backend() != "tpu"
-
-    def systems_fn(invTs):
-        prm = jax.vmap(lambda t: _pa.params_from_invT(t)[0])(invTs)
-        sums = _pa.fused_linearize_batch(
-            cur_p, ref_ps, prm,
-            H=projector.rows, W=projector.cols,
-            TR=TR, TC=TC, DV=DVb, DU=DUb,
-            fx=projector.fx, fy=projector.fy,
-            cx=projector.cx, cy=projector.cy,
-            min_d=projector.min_distance, max_d=projector.max_distance,
-            nthr=cfg.inlier_normal_angular_threshold,
-            dthr2=cfg.inlier_distance_threshold**2,
-            cthr=cfg.flat_curvature_threshold,
-            rthr=cfg.inlier_curvature_ratio_threshold,
-            max_chi2=cfg.inlier_max_chi2,
-            robust=cfg.robust_kernel,
-            interpret=_interp,
-        )
-        return jax.vmap(_pa.unpack_sums)(sums)
-
-    def gn_step(H, b, invT):
-        Hd = H + cfg.damping * jnp.eye(6, dtype=dtype)
-        dx = jnp.linalg.solve(Hd, -b)
-        return lie.se3_v2t(dx) @ invT
-
-    def outer(i, invTs):
-        def inner(k, invTs):
-            Hs, bs, _, _ = systems_fn(invTs)
-            return jax.vmap(gn_step)(Hs, bs, invTs)
-
-        invTs = jax.lax.fori_loop(0, cfg.inner_iterations, inner, invTs)
-        return jax.vmap(lambda t: lie.se3_v2t(lie.se3_t2v(t)))(invTs)
-
-    invTs0 = jax.vmap(lie.se3_inverse)(initial_guesses)
-    invTs = jax.lax.fori_loop(0, cfg.outer_iterations, outer, invTs0)
-    Ts = jax.vmap(lie.se3_inverse)(invTs)
-    Hs, bs, chi2s, inls = systems_fn(invTs)
-    covs = jax.vmap(lambda t: _pa.fused_band_coverage(
-        cur_p, _pa.params_from_invT(t),
-        H=projector.rows, W=projector.cols, TR=TR, TC=TC, DV=DVb, DU=DUb,
-        fx=projector.fx, fy=projector.fy, cx=projector.cx, cy=projector.cy,
-        min_d=projector.min_distance, max_d=projector.max_distance,
-    ))(invTs)
     return jax.vmap(
-        lambda T, H, c, n, cov: _finalize_stats(T, H, c, n, cfg, cov)
-    )(Ts, Hs, chi2s, inls, covs)
+        lambda ref, g: align(ref, current, projector, g, config)
+    )(references, initial_guesses)

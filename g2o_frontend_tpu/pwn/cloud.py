@@ -3,13 +3,12 @@
 The reference `pwn::Cloud` (``pwn_core/cloud.h:20-171``) is a compacted
 array-of-structs: points, normals, per-point Stats (eigenvectors/values,
 curvature), and two information-matrix vectors, with an index image mapping
-pixels to array slots. On TPU we keep the cloud *image-organized*: every
+pixels to array slots. Here the cloud stays *image-organized*: every
 per-point quantity is an array aligned with the depth image, and invalid
 pixels are masked instead of compacted (SURVEY.md §7 hard-part 2).
 
-Storage is CHANNEL-PLANAR: TPU tiles the minor-most two dims to
-(8 sublanes, 128 lanes), so trailing dims of 3 or (3, 3) pad 40-100x and
-blow up HBM traffic. Vectors live as (3, H, W) planes, symmetric matrices
+Storage is CHANNEL-PLANAR: trailing dims of 3 or (3, 3) would make every
+elementwise op stride over tiny minor dims. Vectors live as (3, H, W) planes, symmetric matrices
 as their (6, H, W) upper triangle (see ops/sym6.py), eigenvector frames as
 (9, H, W) with channel 3*k+i = component i of eigenvector k. Trailing-layout
 views (``points`` (H, W, 3), ``omega_p`` (H, W, 3, 3), ...) are provided as

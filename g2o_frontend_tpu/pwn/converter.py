@@ -45,8 +45,10 @@ class ConverterConfig:
     min_points: int = 50
     curvature_threshold: float = 0.02
     # Number of static window-radius levels (geometric between min/max image
-    # radius). Per-pixel-exact radii need arbitrary gathers that serialize on
-    # TPU; a few shifted-slice passes + select run at VPU speed. 0 = exact.
+    # radius). Per-pixel-exact radii need an arbitrary gather; a few
+    # shifted-slice passes + select are pure elementwise work. 0 = exact.
+    # The level count was chosen on another machine: the GPU, which gathers
+    # through its L2, should re-decide it by measurement.
     n_radius_levels: int = 4
     # point information (tangent-frame diagonal): strong along normal
     point_flat_info: tuple = (1000.0, 1.0, 1.0)

@@ -1,10 +1,10 @@
-"""Config-driven PWN pipeline: reference .conf files -> TPU components.
+"""Config-driven PWN pipeline: reference .conf files -> JAX components.
 
 The reference instantiates its whole SLAM pipeline by deserializing a boss
 object graph (``pwn_tracker2/conf/pwn_slam_catacombs_gui.conf``, loaded at
 ``pwn_slam_app.cpp:41-59``; class names resolved via BOSS_REGISTER_CLASS,
 ``pwn_boss/*.cpp``). Here the same class names are registered as factories
-that produce the TPU-native configs, so an existing reference config file
+that produce this framework's configs, so an existing reference config file
 directly parameterizes this framework:
 
   PinholePointProjector            -> projector.PinholeProjector
@@ -314,7 +314,7 @@ class PwnPipeline:
 
 
 def load_pipeline(path) -> PwnPipeline:
-    """Load a reference-style .conf and wire the TPU pipeline from it."""
+    """Load a reference-style .conf and wire the pipeline from it."""
     de = boss.Deserializer(path)
     objs = de.read_all()
     matcher = next((o for o in objs if isinstance(o, MatcherSpec)), None)

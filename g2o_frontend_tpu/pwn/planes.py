@@ -1,8 +1,8 @@
-"""Plane extraction from organized clouds (PlaneEx equivalent, TPU-native).
+"""Plane extraction from organized clouds (PlaneEx equivalent).
 
 The reference extracts planes per RGB-D frame with PCL's sequential
 SAC-RANSAC (``PlaneEx/plane_g2o.cpp:216-241``: segment, remove inliers,
-repeat). That loop is serial and compaction-heavy; the TPU redesign uses the
+repeat). That loop is serial and compaction-heavy; the redesign uses the
 cloud's per-pixel normals (already computed by the converter):
 
 1. per-pixel plane parameters (n, d = n.p) for pixels with valid normals,

@@ -1,6 +1,6 @@
 """Pinhole (and cylindrical) point projectors.
 
-TPU-native analog of ``pwn_core/pinholepointprojector.{h,cpp}`` and
+JAX analog of ``pwn_core/pinholepointprojector.{h,cpp}`` and
 ``cylindricalpointprojector.h``:
 
 - `unproject`: depth image -> (H, W, 3) points + validity (vectorized version

@@ -1,6 +1,6 @@
 """Closed-form weighted alignment solvers (minimal sets AND refinement fits).
 
-TPU-native rework of the reference's ``ransac/alignment_*.h`` solver family
+JAX rework of the reference's ``ransac/alignment_*.h`` solver family
 (``alignment_horn2d.h:12-24``, ``alignment_horn3d.h:10-23``,
 ``alignment_se2.h:9-17``, ``alignment_se3.h:9-16``,
 ``alignment_line2d_linear.h:21-30``, ``alignment_plane_linear.h:10-17``).

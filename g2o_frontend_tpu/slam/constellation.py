@@ -17,7 +17,7 @@ This module proposes correspondences with NO pose prior at all:
    `dist_tol` votes for the two rigid SE2s aligning them (direct + swapped
    assignment); distances are invariant to the drift between the maps,
 2. all K hypotheses are scored in ONE batched device kernel (warp A, NN
-   into B, count inliers) — the TPU-shaped replacement for the reference's
+   into B, count inliers) — the batched replacement for the reference's
    serial correspondence ranking,
 3. the best hypothesis is refined by mutual-NN re-fit rounds and gated on
    inlier count + mean error; survivors return explicit landmark pairs for

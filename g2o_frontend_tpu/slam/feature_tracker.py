@@ -3,7 +3,7 @@
 Re-design of the reference feature-tracker stack
 (``slam/feature_tracker.h:326-430``: MapperState / Tracker /
 CorrespondenceFinder + RANSAC matcher; driver ``slam/tracker_test.cpp:155``)
-for the TPU execution model:
+for batched device execution:
 
 - the *map* is the flat-array `PoseGraph2D` (poses, XY landmarks,
   odometry + observation edges, masks) growing by capacity doubling,

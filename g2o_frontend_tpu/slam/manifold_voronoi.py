@@ -1,7 +1,7 @@
 """Manifold Voronoi extraction: top-down traversability grids from keyframe
 clouds, feeding the Voronoi diagram machinery.
 
-TPU-native re-design of ``pwn_tracker2/manifold_voronoi_extractor.{h,cpp}``:
+JAX re-design of ``pwn_tracker2/manifold_voronoi_extractor.{h,cpp}``:
 the reference walks the last ``dequeSize`` cached keyframe clouds point by
 point, projecting each into a 2D grid around the current key node and keeping
 per cell the deepest point (height-coded ``pz = 10000 - 1000*z``,

@@ -90,12 +90,11 @@ def match_clouds_batch(
     program: `align_batch` over a stacked-leading-axis `Cloud` pytree and
     (K, 4, 4) initial guesses, then vmapped overlap statistics.
 
-    This is the TPU-native inversion of the reference closer's serial
-    candidate loop (``pwn_closer.cpp:92-110`` calls ``matchFrames`` per
-    candidate): all K alignments share one compiled program and fill the
-    chip instead of K dispatches — on the fused path the Pallas kernel runs
-    a (K, gR, gC) grid (no gather fallback). Callers pad K to a bucket size
-    to bound recompiles (see `MapCloser._process_partition`).
+    This inverts the reference closer's serial candidate loop
+    (``pwn_closer.cpp:92-110`` calls ``matchFrames`` per candidate): all K
+    alignments share one compiled program instead of K dispatches. Callers
+    pad K to a bucket size to bound recompiles (see
+    `MapCloser._process_partition`).
     """
     from ..pwn.aligner import align_batch
 

@@ -17,7 +17,7 @@ reduced camera system, never materializing any sparse matrix:
 `optimize_ba_sharded` runs the same algorithm with observations sharded over
 a device mesh: the only communication is a `psum` of the (NP,6)/(NL,3)
 reduction vectors and the block diagonals per matvec — the distributed
-Schur-BA design from BASELINE.json (boundary reductions ride ICI).
+Schur-BA design from BASELINE.json (boundary reductions are collectives).
 """
 from __future__ import annotations
 
@@ -77,7 +77,8 @@ def _linearize(ba: BAProblem):
 def optimize_ba(ba: BAProblem, iters: int = 10, cg_iters: int = 50,
                 lm_lambda0: float = 1e-4):
     """LM-BA with matrix-free Schur-reduced camera solves (f32-pinned
-    matmuls: the TPU bf16 default corrupts the pose-product residuals)."""
+    matmuls: a reduced-precision default corrupts the pose-product
+    residuals)."""
     with jax.default_matmul_precision("highest"):
         return _optimize_ba_jit(ba, iters, cg_iters, lm_lambda0)
 

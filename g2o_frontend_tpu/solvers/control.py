@@ -5,15 +5,38 @@ as the control"; the reference's backend is g2o + CHOLMOD sparse Cholesky
 (``map_g2o_reflector.h:50-74``, ``CMakeLists.txt:105-112``). This module
 plays that role in-tree: a float64 sparse-Cholesky Gauss-Newton/LM solver
 (scipy.sparse) over the same SE2 pose+landmark graphs, run to convergence on
-the host. It is deliberately NOT the TPU path — different precision,
+the host. It is deliberately NOT the device path — different precision,
 different linear algebra, independent code — so agreement is evidence, not
 tautology. Results are pinned in EVAL.md ("chi2 @ control vs chi2 @ ours").
 """
 from __future__ import annotations
 
+import json
+import os
+
 import numpy as np
 import scipy.sparse as sp
 import scipy.sparse.linalg as spla
+
+
+def cached_control(name, compute, directory):
+    """The control optimum's chi2 for problem `name`, cached as
+    ``<directory>/control_<name>.json``.
+
+    The value is always the float64 solver's own output (`compute()` runs
+    when the file is absent), never a constant in code. The controls are
+    deterministic, so the cache can be committed and runs on the device
+    skip the host solve.
+    """
+    path = os.path.join(directory, f"control_{name}.json")
+    if os.path.isfile(path):
+        with open(path) as fh:
+            return json.load(fh)["chi2_control"]
+    val = float(compute())
+    os.makedirs(directory, exist_ok=True)
+    with open(path, "w") as fh:
+        json.dump({"chi2_control": val, "source": "solvers/control.py"}, fh)
+    return val
 
 
 def _wrap(a):
@@ -377,7 +400,7 @@ def control_optimize_se3(
 ):
     """Float64 sparse-Cholesky LM for SE3 pose graphs (PoseGraph3D).
 
-    Residual convention matches the TPU path (solvers/pose_graph.py
+    Residual convention matches the device path (solvers/pose_graph.py
     linearize_se3) and the reference's EdgeSE3 so chi2 values compare
     directly. Jacobians by central differences in the right-multiplied
     local twist chart.
@@ -508,7 +531,7 @@ def control_optimize_ba(
     """Float64 dense-Cholesky LM for BAProblem (solvers/ba.py semantics).
 
     Residual ``e = R^T (p_w - t) - z`` with analytic Jacobians in the same
-    right-multiplied twist chart as the TPU path: for X' = X exp([v, w]),
+    right-multiplied twist chart as the device path: for X' = X exp([v, w]),
     de/dv = -I, de/dw = skew(R^T (p - t)), de/dp = R^T. Small dense system
     (test problems), solved exactly.
     """

@@ -1,6 +1,6 @@
 """Matrix-free preconditioned conjugate gradient over pytree block vectors.
 
-This is the TPU-native replacement for the reference's external sparse
+This is the device-side replacement for the reference's external sparse
 Cholesky backend (g2o + CHOLMOD/CSparse, reference ``CMakeLists.txt:105-112``,
 used through ``boss_map_building/map_g2o_reflector.h:50-74``): instead of
 factorizing a sparse Hessian on the host, we never materialize H — the solver

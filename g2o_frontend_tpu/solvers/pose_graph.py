@@ -1,11 +1,11 @@
 """Batched Gauss-Newton / Levenberg-Marquardt pose-graph optimization.
 
-TPU-native replacement for the reference's g2o backend usage
+JAX replacement for the reference's g2o backend usage
 (``boss_map_building/map_g2o_reflector.h:50-74`` `optimize()`, and the legacy
 direct g2o graphs in ``slam/tracker_test.cpp:365-436``):
 
 - per-edge residual/Jacobian via `vmap`(`jacfwd`) — no hand-rolled sparse
-  workspace; every edge linearizes in parallel on the VPU,
+  workspace; every edge linearizes in parallel,
 - gradient and block-diagonal assembled with `segment_sum`,
 - the Newton system is solved matrix-free with block-Jacobi PCG (`pcg.py`),
 - gauge freedom handled by projecting fixed-pose DOFs out of the system,
@@ -412,13 +412,13 @@ def optimize_se2_direct(
     lm_lambda0: float = 1e-6,
     huber_delta: float | None = None,
 ) -> tuple[PoseGraph2D, OptStats]:
-    """LM with DENSE Cholesky solves — exact Newton steps on the MXU.
+    """LM with DENSE Cholesky solves — exact Newton steps.
 
     The PCG solver's truncated steps converge slowly on long-chain graphs
     with sparse loop closures (victoriaPark: 6x the control optimum after
-    100 LM iterations). On TPU a dense factorization of the full reduced
+    100 LM iterations). On an accelerator a dense factorization of the full reduced
     system is cheap for tens of thousands of DOF (victoriaPark: 21,209 DOF
-    -> 1.8 GB f32 Hessian, O(D^3/3) f32 MXU work per step), matching the
+    -> 1.8 GB f32 Hessian, O(D^3/3) f32 work per step), matching the
     exact-step trajectory of the CHOLMOD control (solvers/control.py; the
     reference's backend, ``map_g2o_reflector.h:50-74``). Use for global
     optimization on graphs whose dense Hessian fits HBM; PCG remains the
@@ -489,7 +489,8 @@ def optimize_se2_direct(
         linearize_se2(g, huber_delta).chi2
     )
 
-    # pin dots to full f32: the TPU MXU's bf16 default poisons the dense
+    # pin dots to full f32: a reduced-precision default (TF32 on a GPU)
+    # poisons the dense
     # assembly/refinement on chain-conditioned systems (see schur_pcg.py)
     prec_ctx = jax.default_matmul_precision("highest")
     prec_ctx.__enter__()
@@ -567,8 +568,8 @@ def optimize_se3(
     precond: "jacobi" or "chain" (block-tridiagonal odometry-chain factor
     via cyclic reduction — see optimize_se2).
 
-    The whole program is pinned to f32 matmul accumulation: under the TPU
-    bf16 default, the 4x4 products feeding ``se3_log`` leave R slightly
+    The whole program is pinned to f32 matmul accumulation: under a
+    reduced-precision default (bf16 or TF32), the 4x4 products feeding ``se3_log`` leave R slightly
     off-orthogonal, (1 - cos th) rounds to zero, and the V^-1 cotangent
     term explodes (measured on graphSE3: residual 1.7e23 / chi2 Inf at the
     dataset init; f32-pinned: 3.57e-7).

@@ -8,7 +8,7 @@ block-Jacobi PCG stalls there (chi2 6.4x above the float64 control optimum
 for two rounds): the chain gives the Hessian an O(N^2) condition number that
 a point-block preconditioner cannot touch.
 
-TPU-native cure, exploiting the problem structure instead of a sparse
+The cure here exploits the problem structure instead of a sparse
 factorization:
 
 1. **Exact Schur elimination of landmarks.** Hll is block-diagonal (2x2 per
@@ -289,8 +289,9 @@ def optimize_se2_schur(
     chain = (g.pp_ij[:, 1] == g.pp_ij[:, 0] + 1) & g.pp_mask
     chain_i = jnp.where(chain, g.pp_ij[:, 0], NP - 1)  # masked -> harmless slot
 
-    # TPU matmul default precision is bf16: the repeated 3x3 eliminations of
-    # the cyclic reduction and the Woodbury products amplify bf16 rounding
+    # A reduced-precision matmul default (bf16, or TF32 on a GPU): the
+    # repeated 3x3 eliminations of the cyclic reduction and the Woodbury
+    # products amplify its rounding
     # catastrophically on the chain-conditioned system (measured: chi2
     # stalls at 394k vs 21.9k with f32 accumulation). Pin every dot in this
     # program to full f32.

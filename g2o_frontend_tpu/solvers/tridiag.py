@@ -6,10 +6,10 @@ closures / co-observed landmarks). The block-tridiagonal part of the
 plain block-Jacobi PCG stall (victoriaPark: chi2 stuck 6.4x above the
 optimum for two rounds). The reference sidesteps the issue with a sparse
 direct factorization (g2o + CHOLMOD, ``boss_map_building/map_g2o_reflector.h:50-74``,
-``CMakeLists.txt:105-112``); on TPU a sequential block-Thomas sweep would
+``CMakeLists.txt:105-112``); on a device a sequential block-Thomas sweep would
 serialize ~N tiny 3x3 ops, so we use **block cyclic reduction**: log2(N)
 levels, each a fully-parallel batched 3x3 elimination over the remaining
-even-indexed blocks — O(N) work, O(log N) depth, all VPU-friendly batched
+even-indexed blocks — O(N) work, O(log N) depth, all batched
 matmuls. Factor once per LM iteration, apply per CG iteration.
 
 System: L[i] x[i-1] + D[i] x[i] + U[i] x[i+1] = r[i], with U[i] = L[i+1]^T

@@ -1,7 +1,7 @@
 """Headless visualization: trajectories / maps / clouds to PNG.
 
 Takes the role of the reference's Qt/OpenGL viewers (``pwn_viewer/``,
-``mapper/graph_viewer/``, GUI apps) in a TPU-batch world: matplotlib (Agg)
+``mapper/graph_viewer/``, GUI apps) in a batch world: matplotlib (Agg)
 renderings written to files for inspection and reports.
 """
 from __future__ import annotations

@@ -69,7 +69,7 @@ def main():
             print(json.dumps(rows[-1]), flush=True)
     with open(os.path.join(OUT, "halo_modes.json"), "w") as fh:
         json.dump({"note": "virtual CPU mesh: wall reflects collective "
-                           "launch overhead, not ICI wire time",
+                           "launch overhead, not interconnect wire time",
                    "rows": rows}, fh)
 
 

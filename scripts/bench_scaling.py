@@ -5,7 +5,7 @@ devices (one process, XLA host device partitioning) on the biggest bundled
 graph and reports LM iters/s per mesh size plus scaling efficiency.
 
 This measures the *mechanism* (shard_map + psum collectives, identical to
-the multi-host ICI/DCN path) on virtual devices; absolute multi-chip numbers
+the multi-device path) on virtual devices; absolute multi-chip numbers
 require hardware the sandbox doesn't have (BASELINE.md). Efficiency on
 virtual CPU devices is a LOWER bound: all devices share the host's cores,
 so any value near 1/n_devices of ideal still validates the collective

@@ -18,6 +18,7 @@ tracker -> TUM trajectory + per-frame benchmark emission
 ground truth.
 
 Usage: python scripts/make_tum_sequence.py [OUT_DIR] [--frames 150]
+(or call `make_sequence` from Python).
 """
 import argparse
 import os
@@ -41,16 +42,10 @@ def wander_pose(k, n_frames):
     return T
 
 
-def main(argv=None):
-    ap = argparse.ArgumentParser()
-    ap.add_argument("out_dir", nargs="?", default="eval_out/tum_seq")
-    ap.add_argument("--frames", type=int, default=150)
-    ap.add_argument("--fps", type=float, default=30.0)
-    args = ap.parse_args(argv)
-
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
+def make_sequence(out_dir, frames=150, fps=30.0):
+    """Render `frames` kinect-intrinsics 640x480 depth frames of the
+    wandering loop into a TUM directory at `out_dir`; returns `out_dir`."""
+    import jax.numpy as jnp
 
     from g2o_frontend_tpu.io.image_codec import encode_image
     from g2o_frontend_tpu.io.tum import kinect_presets
@@ -58,22 +53,20 @@ def main(argv=None):
     from g2o_frontend_tpu.utils import lie
     from g2o_frontend_tpu.utils.synth import render_planes_depth
 
-    import jax.numpy as jnp
-
     fx, fy, cx, cy = kinect_presets["kinect"]
     proj = PinholeProjector(rows=480, cols=640, fx=fx, fy=fy, cx=cx, cy=cy,
                             min_distance=0.3, max_distance=6.0)
 
-    os.makedirs(os.path.join(args.out_dir, "depth"), exist_ok=True)
+    os.makedirs(os.path.join(out_dir, "depth"), exist_ok=True)
     depth_lines = ["# timestamp filename"]
     gt_lines = ["# timestamp tx ty tz qx qy qz qw"]
-    for k in range(args.frames):
-        ts = k / args.fps
-        T = wander_pose(k, args.frames)
+    for k in range(frames):
+        ts = k / fps
+        T = wander_pose(k, frames)
         depth = np.asarray(render_planes_depth(T, proj))
         d16 = np.clip(depth * 5000.0, 0, 65535).astype(np.uint16)
         rel = f"depth/{ts:.6f}.png"
-        with open(os.path.join(args.out_dir, rel), "wb") as fh:
+        with open(os.path.join(out_dir, rel), "wb") as fh:
             fh.write(encode_image(d16, "png"))
         depth_lines.append(f"{ts:.6f} {rel}")
         q = np.asarray(lie.mat2quat_full(jnp.asarray(T[:3, :3], jnp.float32)))
@@ -83,12 +76,26 @@ def main(argv=None):
                 for v in [T[0, 3], T[1, 3], T[2, 3], q[1], q[2], q[3], q[0]]
             )
         )
-    with open(os.path.join(args.out_dir, "depth.txt"), "w") as fh:
+    with open(os.path.join(out_dir, "depth.txt"), "w") as fh:
         fh.write("\n".join(depth_lines) + "\n")
-    with open(os.path.join(args.out_dir, "groundtruth.txt"), "w") as fh:
+    with open(os.path.join(out_dir, "groundtruth.txt"), "w") as fh:
         fh.write("\n".join(gt_lines) + "\n")
+    return out_dir
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("out_dir", nargs="?", default="eval_out/tum_seq")
+    ap.add_argument("--frames", type=int, default=150)
+    ap.add_argument("--fps", type=float, default=30.0)
+    args = ap.parse_args(argv)
+    make_sequence(args.out_dir, args.frames, args.fps)
     print(f"wrote {args.frames} frames to {args.out_dir}")
 
 
 if __name__ == "__main__":
+    import jax
+
+    # rendering is host work: keep this process off the accelerator
+    jax.config.update("jax_platforms", "cpu")
     main()

@@ -1,4 +1,4 @@
-"""Accuracy control: float64 sparse-Cholesky host solver vs the TPU solvers.
+"""Accuracy control: float64 sparse-Cholesky host solver vs the device solvers.
 
 BASELINE.md requires accuracy claims to be grounded in a control run of the
 reference protocol; solvers/control.py plays the g2o+CHOLMOD role
@@ -111,7 +111,7 @@ def _se3_ring(n=48, n_loop=6, noise=0.02, seed=0):
     )
 
 
-def test_control_se3_ring_pins_optimum_and_tpu_reaches_it():
+def test_control_se3_ring_pins_optimum_and_device_path_reaches_it():
     from g2o_frontend_tpu.solvers.control import control_optimize_se3
     from g2o_frontend_tpu.solvers.pose_graph import optimize_se3
 
@@ -128,7 +128,7 @@ def test_control_se3_ring_pins_optimum_and_tpu_reaches_it():
 @pytest.mark.skipif(not os.path.isdir(DATA), reason="reference datasets missing")
 def test_control_se3_graphse3_chain_optimum_zero():
     """graphSE3.g2o is a pure odometry chain (451 edges, no closures): its
-    optimum is exactly 0; both control and the chain-preconditioned TPU
+    optimum is exactly 0; both control and the chain-preconditioned f32
     solver must drive chi2 to the numerical floor."""
     from g2o_frontend_tpu.graph.store import graph3d_from_log
     from g2o_frontend_tpu.solvers.control import control_optimize_se3
@@ -141,13 +141,13 @@ def test_control_se3_graphse3_chain_optimum_zero():
     assert ctl["chi2"] < 1e-9 * max(chi0, 1.0), ctl["chi2"]
     g1, s1 = optimize_se3(g, iters=10, cg_iters=100, precond="chain")
     chi = float(np.asarray(s1.chi2)[-1])
-    # f32 TPU path: floor is ~1e-7 relative on this graph
+    # f32 device path: floor is ~1e-7 relative on this graph
     assert chi < 1e-5 * max(chi0, 1.0), (chi, chi0)
 
 
 def test_control_se3_reflector_graph():
     """Reflector-built PWN-SLAM-style graph (keyframe chain + accepted
-    closures, graph/reflector.py) has a pinned optimum the TPU path hits."""
+    closures, graph/reflector.py) has a pinned optimum the device path hits."""
     from g2o_frontend_tpu.graph.map_manager import MapManager, MapRelation
     from g2o_frontend_tpu.graph.reflector import MapReflector
     from g2o_frontend_tpu.solvers.control import (_se3_exp64,
@@ -185,7 +185,7 @@ def test_control_se3_reflector_graph():
     assert chi <= 1.01 * ctl["chi2"] + 1e-8, (chi, ctl["chi2"])
 
 
-def test_control_ba_pins_optimum_and_tpu_reaches_it():
+def test_control_ba_pins_optimum_and_device_path_reaches_it():
     from g2o_frontend_tpu.solvers.ba import make_ba_problem, optimize_ba
     from g2o_frontend_tpu.solvers.control import (_se3_exp64,
                                                   _T_to_pose7_64,

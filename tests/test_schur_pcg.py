@@ -271,7 +271,7 @@ def test_schur_world2000():
 
 @pytest.mark.skipif(not os.path.isdir(DATA), reason="reference datasets missing")
 def test_schur_victoria_reaches_control():
-    """The round-2 verdict's headline gap: no TPU path got within 20% of the
+    """The round-2 verdict's headline gap: no device path got within 20% of the
     float64 control optimum (22,572.55) on victoriaPark. The Schur solver
     must land at or below 1.01x control (it in fact finds a *better* basin:
     ~21.9k, confirmed by warm-starting the float64 control from its output
